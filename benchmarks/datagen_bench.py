@@ -4,9 +4,9 @@
 The reference's 2D production sweeps budget 30 runs of (200^2 grid, nt=2000,
 T=1.2, 128 snapshots) per 15-minute SLURM task on one GPU
 (finalized_scripts/nlse_2d_launch.sh:5,47-50,66) — i.e. 2.0 trajectories per
-GPU-minute. This measures the TPU equivalent end to end through the real
-pipeline entry (samplers + c/m fields + batched fused-Lanczos evolution +
-snapshot readback), on a 256^2 lane-aligned grid (a 1.64x LARGER grid than
+GPU-minute. This measures the equivalent end to end through the real
+pipeline entry (samplers + c/m fields + batched Lanczos evolution +
+snapshot readback), on a 256^2 grid (a 1.64x LARGER grid than
 the reference's 200^2), Krylov m=20 like the reference's 2D device driver.
 
 Prints one JSON line {metric, value, unit, vs_baseline}; vs_baseline is

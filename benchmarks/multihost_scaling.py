@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Multi-HOST weak-scaling harness: datagen throughput vs process count.
 
-Each process simulates one host of a TPU pod (its own jax runtime + virtual
+Each process simulates one host of a cluster (its own jax runtime + virtual
 CPU devices, gloo collectives over localhost — parallel/distributed.py) and
 runs a fixed per-host datagen workload through the REAL multi-host code path
 (tests/_multihost_worker.py): global batch mesh, per-host sampling, per-host

@@ -1,7 +1,15 @@
-import sys; sys.path.insert(0, "/root/repo")
+"""Per-phase timings of one SS2 step at 1024^2, m=10: full step, Lanczos
+with and without reorthogonalisation, the stencil and the pointwise kick.
+
+Run from the repo root: python benchmarks/prof_lanczos.py
+"""
+import os
+import sys
 import time
 import numpy as np
 import jax, jax.numpy as jnp
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 N, M, DT = 1024, 10, 1e-3
 rng = np.random.default_rng(0)
@@ -18,13 +26,11 @@ rho = nlse_density("cubic", np.ones((N, N), np.float32))
 
 def timeit(name, fn, iters=20):
     t0 = time.time(); out = fn(up); jax.block_until_ready(out)
-    np.asarray(jax.tree.leaves(out)[0][..., :1, :1])
     print(f"{name:26s} compile {time.time()-t0:6.1f}s", end=" ", flush=True)
     t0 = time.time()
     for _ in range(iters):
         out = fn(up)
     jax.block_until_ready(out)
-    np.asarray(jax.tree.leaves(out)[0][..., :1, :1])
     dt = (time.time() - t0) / iters
     print(f" run {dt*1e3:8.3f} ms", flush=True)
     return dt

@@ -10,7 +10,7 @@ two run lengths; the steps/sec comes from the delta, which cancels process
 startup, .npy IO and the operator build.
 
 Caveats recorded with the number: the host path is complex double (f64) —
-the reference has no f32 CPU path — while bench.py runs complex64 on TPU;
+the reference has no f32 CPU path — while bench.py runs complex64 on the GPU;
 and this measures the HOST (Eigen) implementation, the only reference path
 that runs without an NVIDIA GPU (BASELINE.md).
 

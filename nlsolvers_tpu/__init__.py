@@ -1,15 +1,15 @@
-"""nlsolvers_tpu — a TPU-native nonlinear wave-equation solver suite.
+"""nlsolvers_tpu — a JAX nonlinear wave-equation solver suite.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the reference
+A from-scratch JAX/XLA framework with the capabilities of the reference
 C++/CUDA suite `konradha/nonlinear-solvers` (see SURVEY.md): 2D/3D NLSE (cubic,
 cubic-quintic, saturable), sine-Gordon (single/double/hyperbolic), Klein-Gordon,
 phi-4 (deterministic + stochastic) and Boussinesq, evolved with Krylov/Lanczos
 matrix-function integrators (SS2 Strang splitting, sEWI, Gautschi-type) and
 Stormer-Verlet, on no-flux grids with spatially varying c(x) and m(x) fields.
 
-Design stance (TPU-first, not a port):
-  * operators are matrix-free stencils (XLA-fused shifts / Pallas kernels), not
-    CSR SpMV (reference: nlsolvers/common/include/laplacians.hpp);
+Design stance:
+  * operators are matrix-free stencils (shifted adds XLA fuses), not CSR
+    SpMV (reference: nlsolvers/common/include/laplacians.hpp);
   * a whole trajectory is ONE jitted `lax.scan` — no per-step host round trips
     (reference: subprocess-per-run drivers, e.g. host/drivers/nlse_cubic_driver.cpp);
   * batches of trajectories are `vmap`-ed and sharded over a device mesh

@@ -13,10 +13,10 @@ from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-import h5py
 import numpy as np
 
 from nlsolvers_tpu.analysis import energy as en
+from nlsolvers_tpu.pipeline.io_hdf5 import require_h5py
 
 __all__ = ["find_h5_files", "extract_metadata", "analyze_file_energy",
            "process_files", "collective_stats", "find_nonfinite_runs"]
@@ -28,6 +28,7 @@ def find_h5_files(base_dir, pattern="**/*.h5"):
 
 def extract_metadata(h5_file):
     """Flattened metadata/grid/time attrs + dims (ensemble_processing.py:19)."""
+    h5py = require_h5py()
     try:
         with h5py.File(h5_file, "r") as f:
             meta = dict(f["metadata"].attrs) if "metadata" in f else {}
@@ -55,6 +56,7 @@ def _read_fields(f):
 def analyze_file_energy(h5_file, return_timeseries=False):
     """Per-file energy decomposition + conservation summary
     (ensemble_processing.py:91-215). Returns None on unreadable files."""
+    h5py = require_h5py()
     try:
         with h5py.File(h5_file, "r") as f:
             meta = extract_metadata(h5_file)
@@ -154,6 +156,7 @@ def collective_stats(results):
 def find_nonfinite_runs(base_dir, datasets=("u", "v")):
     """Walk every archive under base_dir and flag non-finite trajectories
     (find_nans.py:11-54). Returns {path: [dataset names with NaN/Inf]}."""
+    h5py = require_h5py()
     flagged = {}
     for path in find_h5_files(base_dir):
         bad = []

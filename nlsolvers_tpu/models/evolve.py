@@ -57,7 +57,7 @@ def evolve_guarded(step_fn, state0, num_snapshots, snapshot_freq,
                    observe=None, batched=False, scalars=None,
                    finite_reduce=None):
     """evolve() with an in-loop stability guard + optional on-generation
-    scalar series — the TPU equivalent of the reference's gen-2 on-device
+    scalar series — the equivalent of the reference's gen-2 on-device
     NaN-check and energy kernels (device/sg_solver_dev.hpp:7-90).
 
     Every snapshot is finiteness-checked ON DEVICE inside the jitted loop;

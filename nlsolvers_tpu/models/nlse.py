@@ -22,9 +22,8 @@ import numpy as np
 from nlsolvers_tpu.ops.krylov import MATFUNCS, expm_apply, matfunc_apply
 from nlsolvers_tpu.config import default_krylov_m
 
-__all__ = ["ss2_step", "ss2_step_planar", "phase_kick_planar", "sewi_step",
-           "sewi_step_planar", "gautschi_step", "gautschi_step_planar",
-           "sewi_first_step", "gautschi_phi1_bootstrap"]
+__all__ = ["ss2_step", "sewi_step", "gautschi_step", "sewi_first_step",
+           "gautschi_phi1_bootstrap"]
 
 
 def ss2_step(u, lap, rho_fn, dt, m=default_krylov_m, reorth=True,
@@ -37,101 +36,9 @@ def ss2_step(u, lap, rho_fn, dt, m=default_krylov_m, reorth=True,
     return u
 
 
-def phase_kick_planar(up, rho, theta):
-    """up *= exp(i*theta*rho) on PLANAR (2, ...) float32 state.
-
-    The complex64 pointwise exp costs ~0.87 ms/step at 128^3 on v5e (the
-    complex math plus the per-step real/imag<->complex layout conversions —
-    benchmarks/exp3d_step_r04.py); the planar f32 cos/sin rotation fuses
-    into one cheap VPU pass."""
-    th = theta * rho
-    c, s = jnp.cos(th), jnp.sin(th)
-    return jnp.stack([up[0] * c - up[1] * s, up[0] * s + up[1] * c])
-
-
-def ss2_step_planar(up, desc, rho_fn, dt, m=default_krylov_m,
-                    interpret=False, axis_names=()):
-    """SS2 on PLANAR state (2, R, nx) float32 — the fused fast path.
-
-    Bit-level semantics of ss2_step with tau = i*dt (complex64), minus the
-    per-step complex<->planar layout conversions and complex pointwise exp
-    that cost ~40% of the 3D production step (exp3d_step_r04.py: 4.62 ms
-    step vs 2.73 ms bare matfunc at 128^3). `desc` is the operator's pallas
-    descriptor; `rho_fn` a planar density (nonlinearities.nlse_density_planar).
-    Callers gate on lanczos2d.supported_desc at build time.
-    """
-    from nlsolvers_tpu.ops.pallas.lanczos2d import matfunc_apply_planar
-
-    up = phase_kick_planar(up, rho_fn(up), 0.5 * dt)
-    up = matfunc_apply_planar(up, desc, np.complex64(1j * dt), "exp", m,
-                              interpret=interpret, axis_names=axis_names)
-    return phase_kick_planar(up, rho_fn(up), 0.5 * dt)
-
-
 def _B(u, rho_fn):
     """sEWI source term B(u) = -rho(u) u (nlse.cuh:71-84)."""
     return -rho_fn(u) * u
-
-
-def _mul_i_planar(up):
-    """i * u on PLANAR (2, ...) state: (re, im) -> (-im, re)."""
-    return jnp.stack([-up[1], up[0]])
-
-
-def sewi_step_planar(up, up_prev, desc, rho_fn, dt, m=default_krylov_m,
-                     interpret=False, axis_names=(), fuse_exp_sinc=False):
-    """One sEWI step on PLANAR (2, R, nx) float32 state; returns (new, up).
-
-    Same semantics as sewi_step (nlse_dev.hpp:205-238) with tau = i*dt in
-    complex64, minus the per-matfunc complex<->planar layout conversions
-    that cost ~40% of the 3D step (benchmarks/exp3d_step_r04.py) — the
-    round-4 planar treatment extended to the reference's second production
-    NLSE integrator (VERDICT r4 missing #1). The final combination
-    u' = e2 - 2 tau e1 becomes a planar i-rotation (`_mul_i_planar`)
-    instead of a complex scalar multiply. `rho_fn` is a planar density
-    (nonlinearities.nlse_density_planar); callers gate on
-    lanczos2d.supported_desc like ss2_step_planar.
-    """
-    from nlsolvers_tpu.ops.pallas.lanczos2d import matfunc_apply_planar
-
-    tau = np.complex64(1j * dt)
-    Bp = -rho_fn(up) * up                         # B(u) = -rho(u) u, planar
-    if fuse_exp_sinc:
-        # same fused product as sewi_step(fuse_exp_sinc=True): exp takes
-        # imaginary time tau, sinc REAL dt
-        exp_sinc = lambda _t, lam: (MATFUNCS["exp"](tau, lam)
-                                    * MATFUNCS["sinc"](np.float32(dt), lam))
-        e1 = matfunc_apply_planar(Bp, desc, tau, exp_sinc, m,
-                                  interpret=interpret, axis_names=axis_names)
-    else:
-        psi = matfunc_apply_planar(Bp, desc, np.float32(dt), "sinc", m,
-                                   interpret=interpret,
-                                   axis_names=axis_names)
-        e1 = matfunc_apply_planar(psi, desc, tau, "exp", m,
-                                  interpret=interpret, axis_names=axis_names)
-    e2 = matfunc_apply_planar(up_prev, desc, np.complex64(2.0 * tau), "exp",
-                              m, interpret=interpret, axis_names=axis_names)
-    return e2 - (2.0 * dt) * _mul_i_planar(e1), up
-
-
-def gautschi_step_planar(up, up_prev, desc, rho_fn, dt, m=default_krylov_m,
-                         interpret=False, axis_names=(),
-                         convention="cubic"):
-    """gautschi_step on PLANAR state; returns (new, up). Same two sign
-    conventions as the complex form (see gautschi_step docstring)."""
-    from nlsolvers_tpu.ops.pallas.lanczos2d import matfunc_apply_planar
-
-    sgn = -1.0 if convention == "cubic" else 1.0
-    tau = np.complex64(1j * dt)
-    Bp = -rho_fn(up) * up
-    psi = matfunc_apply_planar(Bp, desc, np.float32(dt), "sinc", m,
-                               interpret=interpret, axis_names=axis_names)
-    e1 = matfunc_apply_planar(psi, desc, np.complex64(sgn * tau), "exp", m,
-                              interpret=interpret, axis_names=axis_names)
-    e2 = matfunc_apply_planar(up_prev, desc, np.complex64(sgn * 2.0 * tau),
-                              "exp", m, interpret=interpret,
-                              axis_names=axis_names)
-    return e2 - (sgn * 2.0 * dt) * _mul_i_planar(e1), up
 
 
 def sewi_step(u, u_prev, lap, rho_fn, dt, m=default_krylov_m, reorth=True,
@@ -214,7 +121,7 @@ def gautschi_phi1_bootstrap(u, lap, rho_fn, dt, bc_fn=None, pre_steps=10,
     (tau_s L)^{-1} (exp(tau_s * (tau_s L)) - 1) B = tau_s phi1(tau_s^2 L) B
     via a Krylov expm plus a SparseLU solve; in the tau_s^2 |lambda| << 1
     regime both ways equal the phi1 matrix function to roundoff, so here it
-    is ONE Krylov projection (no sparse factorization on TPU).
+    is ONE Krylov projection (no sparse factorization).
     """
     taus = np.asarray(1j * dt / pre_steps, u.dtype)
     for _ in range(pre_steps):

@@ -23,7 +23,7 @@ Parity notes (each vs the reference's production form):
 
 import jax.numpy as jnp
 
-__all__ = ["nlse_density", "nlse_density_planar", "realwave_g",
+__all__ = ["nlse_density", "realwave_g",
            "realwave_potential", "NLSE_KINDS", "REALWAVE_KINDS"]
 
 NLSE_KINDS = ("cubic", "cubic_quintic", "saturable")
@@ -52,28 +52,6 @@ def nlse_density(kind, m, *, sigma1=1.0, sigma2=-0.1, kappa=1.0,
             def rho(u):
                 a = u.real**2 + u.imag**2
                 return m * a / (1.0 + kappa * a)
-    else:
-        raise ValueError(f"unknown NLSE kind {kind!r}")
-    return rho
-
-
-def nlse_density_planar(kind, m, *, sigma1=1.0, sigma2=-0.1, kappa=1.0):
-    """rho(up) for PLANAR state up = (2, ...) stacked (re, im) float32.
-
-    Same table as nlse_density (the device forms — the planar fast path
-    never carries the host saturable quirk, which needs a complex density),
-    written against up[0]/up[1] because planar arrays have .imag == 0."""
-    if kind == "cubic":
-        def rho(up):
-            return m * (up[0] * up[0] + up[1] * up[1])
-    elif kind == "cubic_quintic":
-        def rho(up):
-            a = up[0] * up[0] + up[1] * up[1]
-            return m * (sigma1 * a + sigma2 * a * a)
-    elif kind == "saturable":
-        def rho(up):
-            a = up[0] * up[0] + up[1] * up[1]
-            return m * a / (1.0 + kappa * a)
     else:
         raise ValueError(f"unknown NLSE kind {kind!r}")
     return rho

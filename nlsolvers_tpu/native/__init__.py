@@ -4,7 +4,7 @@ Currently: the async .npy snapshot writer (snapshot_writer.cpp) — the
 framework's native IO path, replacing the reference's libnpy util
 (common/include/util.hpp:37-92) and synchronous snapshot streaming
 (nlse_dev.hpp:323-334) with a thread-pool writer that overlaps disk IO with
-TPU compute during datagen.
+device compute during datagen.
 
 The shared library is compiled on first use with g++ (cached next to the
 source, keyed by source hash) so the repo needs no build step. If no

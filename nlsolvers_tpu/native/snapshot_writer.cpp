@@ -6,7 +6,7 @@
 // copy each snapshot device->host synchronously inside the step loop. Here
 // the host side is a thread pool: the Python pipeline hands a finished
 // snapshot buffer over (one memcpy) and the accelerator moves on while
-// worker threads serialize .npy files to disk — disk IO overlaps TPU compute
+// worker threads serialize .npy files to disk — disk IO overlaps device compute
 // during datagen sweeps.
 //
 // Plain C ABI for ctypes (no pybind11 in this environment). All functions

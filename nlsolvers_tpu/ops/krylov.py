@@ -1,11 +1,12 @@
 """Lanczos matrix-function core: y = f(t·g(L)) u for matrix-free operators.
 
-TPU-native replacement for the reference's Krylov pipeline
+Replacement for the reference's Krylov pipeline
 (host/include/eigen_krylov_real.hpp, eigen_krylov_complex.hpp;
 device/include/lanczos.hpp, lanczos_complex.hpp, matfunc_real.hpp,
-matfunc_complex.hpp). Differences by design:
+matfunc_complex.hpp), in plain jnp/lax left to XLA. Differences by design:
 
-* The operator is a matrix-free closure (stencil), not CSR SpMV.
+* The operator is a matrix-free closure (stencil) that XLA fuses into one
+  loop, not a cuSPARSE CSR SpMV.
 * The whole Lanczos iteration lives inside one jitted `lax.fori_loop`; the
   m x m tridiagonal eigendecomposition runs on-device via `jnp.linalg.eigh`
   (m <= 20, trivial) — zero host round trips, unlike the reference device path
@@ -46,12 +47,12 @@ from nlsolvers_tpu.config import default_krylov_m, real_dtype_of
 __all__ = ["lanczos", "tridiag_eigh", "matfunc_apply", "matfunc_apply_multi",
            "expm_apply", "MATFUNCS"]
 
-# TPU MXU matmuls default to bfloat16 inputs; for the Lanczos projections,
-# the T eigendecomposition, and the coefficient solve that precision loss
-# compounds into ~1e-2 energy drift per 50 Gautschi steps (measured: CPU f32
-# drifts 1.6e-4, TPU f32 with default precision 1.65e-2 on the same run).
-# Every dot/matmul in this module therefore pins HIGHEST (full f32) —
-# these are bandwidth-bound GEMVs and 10x10 ops, so the cost is nil.
+# At default precision XLA may run f32 matmuls on the GPU in TF32, which
+# keeps ~10 mantissa bits (~3 decimal digits). In the Lanczos projections,
+# the T eigendecomposition and the coefficient solve that loss compounds
+# step over step into energy drift orders of magnitude above f32 roundoff.
+# Every dot/matmul in this module therefore pins HIGHEST (full f32): these
+# are bandwidth-bound GEMVs and m x m ops, so TF32 would buy nothing.
 _HI = jax.lax.Precision.HIGHEST
 
 
@@ -166,11 +167,10 @@ def _lanczos_cols(matvec, u, m, reorth=True, axis_names=()):
     # full-reorthogonalization projection touches only the j+1 columns that
     # exist so far, instead of a fixed (m, n) block where m-j-1 rows are
     # still zero. The basis lives as a python list of columns; the per-
-    # iteration jnp.stack is a real copy, but A/B-measured on the v5e
-    # (benchmarks/ab_lanczos.py) it beats both a preallocated (m, n) buffer
-    # updated with .at[j].set (XLA copies the whole buffer per set: +1.4
-    # GB/step at 1024^2 m=10) and per-column vdots (2.4x slower: one
-    # reduction kernel per column).
+    # iteration jnp.stack is a real copy; the alternatives are a
+    # preallocated (m, n) buffer updated with .at[j].set (XLA may copy the
+    # whole buffer per set) and per-column vdots (one reduction kernel per
+    # column). benchmarks/ab_lanczos.py A/Bs the three layouts.
     vs = [v0]
     alphas = []
     betas = []
@@ -208,13 +208,23 @@ def _lanczos_cols(matvec, u, m, reorth=True, axis_names=()):
 def tridiag_eigh(alpha, beta):
     """Eigendecomposition of the real symmetric tridiagonal T(alpha, beta).
 
-    Pinned to full-f32 matmul precision: eigh's internal QDWH/Jacobi matmuls
-    at TPU default (bf16) precision corrupt the eigenvectors at ~1e-3, which
-    dominates the whole matfunc's error budget (see _HI note above).
+    Pinned to full-f32 matmul precision: any matmul inside the eigh
+    expansion run in TF32 would corrupt the eigenvectors at ~1e-3, which
+    would dominate the whole matfunc's error budget (see _HI note above).
+
+    The QR-based solver is requested explicitly (LAPACK/cuSOLVER syevd).
+    For matrices this small the GPU default is Jacobi (syevj), whose f32
+    eigenvectors measured 1.8e-6 from orthogonal on an H100 against 8e-7
+    for syevd; a non-orthogonal Q makes exp(i dt T) non-unitary, which took
+    the 1024^2 complex64 SS2 mass drift from 8e-6 to 1.1e-3 over 1000 steps
+    (and syevj was the slower of the two). The CPU backend runs syevd
+    either way.
     """
     T = jnp.diag(alpha) + jnp.diag(beta, 1) + jnp.diag(beta, -1)
     with jax.default_matmul_precision("highest"):
-        return jnp.linalg.eigh(T)
+        Q, lam = lax.linalg.eigh(
+            T, implementation=lax.linalg.EighImplementation.QR)
+    return lam, Q
 
 
 def matfunc_apply(matvec, u, t, func, m=default_krylov_m, reorth=True,
@@ -241,13 +251,10 @@ def matfunc_apply_multi(matvec, u, specs, m=default_krylov_m, reorth=True,
     in u — while the expensive iteration (matvecs + reorthogonalization) runs
     once. The reference always re-runs Lanczos per matfunc even on the same
     vector (e.g. the Gautschi step's filter + cos pair, sg_single_solver.hpp:
-    52-57 — 3 Lanczos runs where 2 suffice); this is the TPU build's structural
-    win on every Gautschi-type stepper. Returns a tuple, one field per spec.
+    52-57 — 3 Lanczos runs where 2 suffice); this is a structural win on
+    every Gautschi-type stepper. Returns a tuple, one field per spec.
     """
     specs = tuple(specs)
-    fused = _fused_pallas_path(matvec, u, specs, m, reorth, axis_names)
-    if fused is not None:
-        return fused
     vs, alphas, betas, beta0 = _lanczos_cols(matvec, u, m, reorth=reorth,
                                              axis_names=axis_names)
     rdtype = real_dtype_of(u.dtype)
@@ -274,58 +281,6 @@ def matfunc_apply_multi(matvec, u, specs, m=default_krylov_m, reorth=True,
             out = out + coef[i] * vs[i]
         outs.append(out.astype(u.dtype))
     return tuple(outs)
-
-
-def _fused_pallas_path(matvec, u, specs, m, reorth, axis_names):
-    """Dispatch to the fused Pallas Lanczos kernels (ops/pallas/lanczos2d)
-    when the operator carries a descriptor and the configuration allows it.
-    Returns None when the pure-XLA path should run instead. The fused path
-    always does full reorthogonalization, so reorth=False falls through."""
-    from nlsolvers_tpu.config import pallas_dispatch
-
-    desc = getattr(matvec, "_pallas_desc", None)
-    if desc is None or not reorth or u.ndim not in (2, 3):
-        return None
-    kind = desc.get("kind")
-    if axis_names:
-        # sharded grids: only the shard* descriptors know how to ppermute
-        # halos and psum the kernel reductions (ops/pallas/lanczos2d.py)
-        if kind in ("shard2d", "shard2d_aniso"):
-            if tuple(axis_names) != (desc["ay"], desc["ax"]):
-                return None
-        elif kind in ("shard3d", "shard3d_aniso"):
-            if tuple(axis_names) != (desc["az"], desc["ay"], desc["ax"]):
-                return None
-            # kernels need the static local dims for the merged-row view
-            desc = dict(desc, lnz=u.shape[0], lny=u.shape[1])
-        else:
-            return None
-    elif kind in ("shard2d", "shard2d_aniso", "shard3d", "shard3d_aniso"):
-        return None
-    use, interpret = pallas_dispatch()
-    if not use:
-        return None
-    from nlsolvers_tpu.ops.pallas.lanczos2d import (matfunc_apply_planar_multi,
-                                                    supported_desc)
-    if not supported_desc(desc, u.shape, u.dtype):
-        return None
-    # 3D fields run on the merged (nz*ny, nx) row view — the kernels handle
-    # plane seams and z-offsets natively (ops/pallas/lanczos2d._stencil_3d).
-    planar_shape = ((u.shape[0] * u.shape[1], u.shape[2]) if u.ndim == 3
-                    else u.shape)
-    if u.dtype == jnp.complex64:
-        planar = jnp.stack([jnp.real(u).reshape(planar_shape),
-                            jnp.imag(u).reshape(planar_shape)])
-        outs = matfunc_apply_planar_multi(planar, desc, specs, m,
-                                          interpret=interpret,
-                                          axis_names=axis_names)
-        return tuple(lax.complex(o[0], o[1]).reshape(u.shape).astype(u.dtype)
-                     for o in outs)
-    planar = u.reshape(planar_shape)[None].astype(jnp.float32)
-    outs = matfunc_apply_planar_multi(planar, desc, specs, m,
-                                      interpret=interpret,
-                                      axis_names=axis_names)
-    return tuple(o[0].reshape(u.shape).astype(u.dtype) for o in outs)
 
 
 def expm_apply(matvec, u, t, m=default_krylov_m, reorth=True, axis_names=()):

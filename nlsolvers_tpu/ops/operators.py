@@ -1,11 +1,12 @@
 """Matrix-free finite-difference operators on no-flux grids.
 
-TPU-native replacements for the reference's CSR sparse matrices
-(`nlsolvers/common/include/laplacians.hpp`). On TPU a 5/7-point stencil is a
-handful of shifted adds that XLA fuses into a single HBM pass — building a CSR
-matrix and doing SpMV (the cuSPARSE design) would waste both memory and
-bandwidth. Every operator here is a closure `apply(u) -> Lu` acting on fields
-shaped `(..., ny, nx)` (2D) or `(..., nz, ny, nx)` (3D); leading axes are batch
+Replacements for the reference's CSR sparse matrices
+(`nlsolvers/common/include/laplacians.hpp`). A 5/7-point stencil is a handful
+of shifted adds that XLA fuses into a single pass over device memory —
+building a CSR matrix and doing SpMV (the reference's cuSPARSE design) would
+cost extra memory for the index arrays and extra bandwidth to read them.
+Every operator here is a closure `apply(u) -> Lu` acting on fields shaped
+`(..., ny, nx)` (2D) or `(..., nz, ny, nx)` (3D); leading axes are batch
 axes, so the same closure is `vmap`/sharding transparent.
 
 Reference-parity notes (each verified against dense matrices in
@@ -149,10 +150,6 @@ def laplacian_2d(shape, dx, dy, variant="reference", dtype=jnp.float32):
         nb = neighbor_sum(u, -1) + neighbor_sum(u, -2)
         return (nb + diag * u) * scale
 
-    # Static descriptor letting ops/krylov.matfunc_apply dispatch to the
-    # fused Pallas Lanczos kernels (ops/pallas/lanczos2d.py) on TPU.
-    apply._pallas_desc = dict(kind="laplacian_2d", ny=int(ny), nx=int(nx),
-                              scale=float(scale), sign=1.0, variant=variant)
     return apply
 
 
@@ -185,9 +182,6 @@ def laplacian_3d(shape, dx, variant="reference", dtype=jnp.float32):
             nb = nb + neighbor_sum(u, -2)
         return (nb + diag * u) * scale
 
-    apply._pallas_desc = dict(kind="laplacian_3d", nz=int(nz), ny=int(ny),
-                              nx=int(nx), scale=float(scale), sign=1.0,
-                              variant=variant)
     return apply
 
 
@@ -214,23 +208,6 @@ def anisotropic_laplacian_2d(c, dx, dy):
         out = out.at[..., 1:, :].add(-fy)
         return out * scale
 
-    if c.ndim == 2:
-        # Zero-padded face weights to full (ny, nx) so the fused Pallas
-        # kernels (ops/pallas/lanczos2d.py) can stream them as aligned
-        # blocks: wx column nx-1 and wy row ny-1 are the no-flux faces.
-        ny, nx = c.shape
-        import numpy as _np
-        if isinstance(wx, _np.ndarray):
-            wx_pad = _np.zeros((ny, nx), _np.float32)
-            wx_pad[:, :nx - 1] = wx
-            wy_pad = _np.zeros((ny, nx), _np.float32)
-            wy_pad[:ny - 1, :] = wy
-        else:
-            wx_pad = jnp.pad(wx.astype(jnp.float32), ((0, 0), (0, 1)))
-            wy_pad = jnp.pad(wy.astype(jnp.float32), ((0, 1), (0, 0)))
-        apply._pallas_desc = dict(kind="aniso_laplacian_2d", ny=int(ny),
-                                  nx=int(nx), scale=float(scale), sign=1.0,
-                                  variant="aniso", wx=wx_pad, wy=wy_pad)
     return apply
 
 
@@ -281,47 +258,6 @@ def anisotropic_laplacian_3d(c, dx, variant="reference"):
 
         return out * scale
 
-    if c.ndim == 3:
-        # Zero-padded face weights on the merged (nz*ny, nx) row view for
-        # the fused Pallas kernels: x faces pad col nx-1; merged-row faces
-        # (the reference's y+seam couplings, or plane-local y for "clean")
-        # pad their no-flux rows; z faces pad the z = nz-1 rows. All
-        # boundary/seam structure lives in the weights — one kernel serves
-        # both variants.
-        R = nz * ny
-        import numpy as _np
-        xp = _np if isinstance(wx, _np.ndarray) else jnp
-        cm = c.reshape(R, nx)
-        if xp is _np:
-            wx_pad = _np.zeros((R, nx), _np.float32)
-            wx_pad[:, :nx - 1] = wx.reshape(R, nx - 1)
-            wym_pad = _np.zeros((R, nx), _np.float32)
-            if variant == "reference":
-                wym_pad[:R - 1] = 0.5 * (cm[:-1] + cm[1:])
-            else:
-                wyv = wy.reshape(nz, ny - 1, nx)
-                wym_pad.reshape(nz, ny, nx)[:, :ny - 1] = wyv
-            wz_pad = _np.zeros((R, nx), _np.float32)
-            wz_pad[:R - ny] = 0.5 * (cm[:R - ny] + cm[ny:])
-        else:
-            wx_pad = jnp.pad(wx.reshape(R, nx - 1).astype(jnp.float32),
-                             ((0, 0), (0, 1)))
-            if variant == "reference":
-                wym_pad = jnp.pad(
-                    0.5 * (cm[:-1] + cm[1:]).astype(jnp.float32),
-                    ((0, 1), (0, 0)))
-            else:
-                wym_pad = jnp.pad(
-                    wy.reshape(nz, ny - 1, nx).astype(jnp.float32),
-                    ((0, 0), (0, 1), (0, 0))).reshape(R, nx)
-            wz_pad = jnp.pad(
-                0.5 * (cm[:R - ny] + cm[ny:]).astype(jnp.float32),
-                ((0, ny), (0, 0)))
-        apply._pallas_desc = dict(kind="aniso_laplacian_3d", nz=int(nz),
-                                  ny=int(ny), nx=int(nx),
-                                  scale=float(scale), sign=1.0,
-                                  variant="aniso", wx=wx_pad, wy=wym_pad,
-                                  wz=wz_pad)
     return apply
 
 

@@ -1,11 +1,11 @@
 """Trajectory-batch parallelism: vmap over runs, shard the batch axis.
 
-This is the TPU-native replacement for the reference's embarrassingly-parallel
+This is the replacement for the reference's embarrassingly-parallel
 farms (mpi4py rank-per-trajectory in device/submit_nlse.py:80-137 and SLURM
 job arrays in finalized_scripts/nlse_2d_launch.sh): a batch of initial
 conditions becomes a leading array axis, `vmap` turns the per-trajectory step
 into a batched step, and a NamedSharding over the mesh's "batch" axis spreads
-trajectories across chips with zero communication — the same parallelism
+trajectories across devices with zero communication — the same parallelism
 structure, one process instead of hundreds.
 """
 

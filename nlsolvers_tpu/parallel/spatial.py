@@ -3,7 +3,7 @@
 NEW capability relative to the reference, which never decomposes a grid —
 one trajectory always owns one whole device there (SURVEY.md §5, "the operator
 is global CSR"). Here the (ny, nx) grid is split over mesh axes, the 5-point
-stencil exchanges one-deep halos with `lax.ppermute` over ICI neighbors, and
+stencil exchanges one-deep halos with `lax.ppermute` with mesh neighbors, and
 every Lanczos inner product / norm is a `psum` (ops/krylov.py axis_names).
 
 Everything runs inside `shard_map`; the helpers below build *local* operator
@@ -22,7 +22,6 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
@@ -117,11 +116,6 @@ def sharded_laplacian_2d(global_shape, dx, dy, axis_names,
         nb = (halo_neighbor_sum(u, -1, ax) + halo_neighbor_sum(u, -2, ay))
         return (nb + diag * u) * scale
 
-    # descriptor for the fused Pallas Lanczos kernels: the sharded mode
-    # ppermutes halos and psums kernel reductions (ops/pallas/lanczos2d.py)
-    apply._pallas_desc = dict(kind="shard2d", NY=int(NY), NX=int(NX),
-                              scale=float(scale), sign=1.0, variant=variant,
-                              ay=ay, ax=ax)
     return apply
 
 
@@ -206,11 +200,6 @@ def sharded_laplacian_3d(global_shape, dx, axis_names,
             raise ValueError(f"unknown variant {variant!r}")
         return (nb + diag * u) * scale
 
-    # descriptor for the fused Pallas Lanczos kernels (shard3d mode:
-    # merged-row stencil with ppermute'd halos, psum'd reductions)
-    apply._pallas_desc = dict(kind="shard3d", NZ=int(NZ), NY=int(NY),
-                              NX=int(NX), scale=float(scale), sign=1.0,
-                              variant=variant, az=az, ay=ay, ax=ax)
     return apply
 
 
@@ -375,20 +364,6 @@ def _sharded_aniso(global_shape, dx, axis_names, variant):
                                             variant=variant)
 
 
-def _aniso_desc(global_shape, dx, axis_names, variant, cloc, sign):
-    """Per-call fused-kernel descriptor for the sharded anisotropic operator
-    (c is a tracer, so the descriptor is rebuilt at each trace)."""
-    if len(global_shape) == 2:
-        return dict(kind="shard2d_aniso", NY=global_shape[0],
-                    NX=global_shape[1], scale=1.0 / (dx * dx), sign=sign,
-                    variant="aniso", ay=axis_names[0], ax=axis_names[1],
-                    c=cloc)
-    return dict(kind="shard3d_aniso", NZ=global_shape[0], NY=global_shape[1],
-                NX=global_shape[2], scale=1.0 / (dx * dx), sign=sign,
-                variant=variant, az=axis_names[0], ay=axis_names[1],
-                ax=axis_names[2], c=cloc)
-
-
 def _spec(mesh_axes, batch_axis):
     if batch_axis is None:
         return P(*mesh_axes)
@@ -422,65 +397,8 @@ def make_sharded_nlse_step(kind, global_shape, Lx, dt, mesh,
     neumann = (_sharded_neumann(global_shape, axis_names) if apply_bc
                else (lambda u: u))
 
-    # Planar fast path (round 4, same as pipeline/engine): when the sharded
-    # fused kernels qualify, the step never leaves the packed (2, ...)
-    # float32 layout — planar cos/sin kicks, fused matfunc on the merged
-    # row view, no per-step complex<->planar conversions.
-    lshape = tuple(g // int(mesh.shape[a])
-                   for g, a in zip(global_shape, axis_names))
-    use_planar = False
-    if dtype == jnp.complex64 and reorth:
-        from nlsolvers_tpu.config import pallas_dispatch
-        from nlsolvers_tpu.ops.pallas.lanczos2d import supported_desc
-        probe = (_aniso_desc(global_shape, dx, axis_names, variant,
-                             np.ones(lshape, np.float32), 1.0) if use_c
-                 else getattr(lap, "_pallas_desc", None))
-        use_pl, pl_interp = pallas_dispatch()
-        use_planar = bool(use_pl and supported_desc(probe, lshape, dtype))
-    Rl, nxl = int(np.prod(lshape[:-1])), lshape[-1]
-
-    # fused ghost-copy kernel on the sharded planar path (same kernel as
-    # the unsharded step, ops/pallas/bc3d.py — global-coordinate masks,
-    # shard-local sources; replaces the where-chain of sharded_neumann_3d
-    # which costs a full extra state pass per step)
-    use_bc_kernel = False
-    if use_planar and apply_bc and len(global_shape) == 3:
-        from nlsolvers_tpu.ops.pallas.bc3d import pick_tp_bc
-        use_bc_kernel = (lshape[-1] % 128 == 0 and lshape[1] % 8 == 0
-                         and min(lshape) >= 2
-                         and pick_tp_bc(*lshape, 2) >= 2)
-
-    def _neumann_planar(upr):
-        if use_bc_kernel:
-            from nlsolvers_tpu.ops.pallas.bc3d import neumann_bc_planar_3d
-            offs = [lax.axis_index(a) * l
-                    for a, l in zip(axis_names, lshape)]
-            return neumann_bc_planar_3d(
-                upr, lshape, global_shape=global_shape, offsets=offs,
-                interpret=pl_interp).reshape((2,) + lshape)
-        return neumann(upr.reshape((2,) + lshape))
-
-    def local_single_planar(up, mloc, cloc=None):     # up (2,) + lshape
-        from nlsolvers_tpu.models.nonlinearities import nlse_density_planar
-        desc = (_aniso_desc(global_shape, dx, axis_names, variant, cloc,
-                            1.0) if use_c else lap._pallas_desc)
-        if len(global_shape) == 3:
-            desc = dict(desc, lnz=lshape[0], lny=lshape[1])
-        rho = nlse_density_planar(kind, mloc.reshape(Rl, nxl),
-                                  sigma1=sigma1, sigma2=sigma2, kappa=kappa)
-        upr = nlse_mod.ss2_step_planar(up.reshape(2, Rl, nxl), desc, rho,
-                                       dt, m=krylov_m, interpret=pl_interp,
-                                       axis_names=axis_names)
-        return _neumann_planar(upr)
-
     def local_single(u, mloc, cloc=None):
-        if use_c:
-            op = lambda v: aniso(v, cloc)
-            # per-call descriptor (c is a tracer) for the fused kernels
-            op._pallas_desc = _aniso_desc(global_shape, dx, axis_names,
-                                          variant, cloc, sign=1.0)
-        else:
-            op = lap
+        op = (lambda v: aniso(v, cloc)) if use_c else lap
         rho = nlse_density(kind, mloc, sigma1=sigma1, sigma2=sigma2,
                            kappa=kappa)
         u = nlse_mod.ss2_step(u, op, rho, dt, m=krylov_m, reorth=reorth,
@@ -488,15 +406,6 @@ def make_sharded_nlse_step(kind, global_shape, Lx, dt, mesh,
         return neumann(u)
 
     def local_step(u_packed, mloc, cloc=None):
-        if use_planar:
-            up = u_packed.astype(rdtype)
-            if batch_axis is None:
-                return (local_single_planar(up, mloc, cloc) if use_c
-                        else local_single_planar(up, mloc))
-            fn = jax.vmap(local_single_planar, in_axes=((1, 0, 0) if use_c
-                                                        else (1, 0)),
-                          out_axes=1)
-            return fn(up, mloc, cloc) if use_c else fn(up, mloc)
         u = lax.complex(u_packed[0], u_packed[1])
         if batch_axis is None:
             u = local_single(u, mloc, cloc)
@@ -544,17 +453,9 @@ def make_sharded_realwave_step(kind, global_shape, Lx, dt, mesh,
                else (lambda u: u))
 
     def local_single(u, u_past, mloc, cloc=None):
-        if use_c:
-            op = lambda v: aniso(v, cloc)
-            op._pallas_desc = _aniso_desc(global_shape, dx, axis_names,
-                                          variant, cloc, sign=1.0)
-        else:
-            op = lap
+        op = (lambda v: aniso(v, cloc)) if use_c else lap
         if integrator == "gautschi":
             omega2 = lambda w: -op(w)
-            _d = getattr(op, "_pallas_desc", None)
-            if _d is not None:
-                omega2._pallas_desc = dict(_d, sign=-_d["sign"])
             u_new, u_past_new = rw.gautschi_step(
                 u, u_past, omega2, mloc, g, dt, m=krylov_m,
                 filter_func=filter_func, reorth=reorth,
@@ -584,10 +485,10 @@ def make_sharded_realwave_step(kind, global_shape, Lx, dt, mesh,
 
 # ---------------------------------------------------------------------------
 # Grid-sharded trajectory engines: the datagen path for single trajectories
-# too large for one chip (1024^2-256^3 configs — SURVEY.md section 5's
+# too large for one device (1024^2-256^3 configs — SURVEY.md section 5's
 # "long-context" axis, new capability over the reference's one-grid-one-GPU
 # model). Same contract as pipeline/engine.make_*_trajectory_fn, but the
-# WHOLE evolution scan runs inside shard_map: halos ppermute over ICI,
+# WHOLE evolution scan runs inside shard_map: halos ppermute between devices,
 # Lanczos reductions psum, snapshots stack shard-locally and come back as
 # one global array.
 # ---------------------------------------------------------------------------
@@ -663,93 +564,12 @@ def make_sharded_nlse_trajectory_fn(kind, global_shape, Lx, dt, mesh,
                else (lambda u: u))
 
     def op_of(cloc):
-        if not use_c:
-            return lap
-        op = lambda v: aniso(v, cloc)
-        op._pallas_desc = _aniso_desc(global_shape, dx, axis_names,
-                                      variant, cloc, sign=1.0)
-        return op
-
-    # Planar fast path (round 4): ss2 complex64 trajectories keep the
-    # state as (2, *local) float32 through the whole scan — same decision
-    # and structure as make_sharded_nlse_step / pipeline/engine.
-    lshape = tuple(g // int(mesh.shape[a])
-                   for g, a in zip(global_shape, axis_names))
-    use_planar = False
-    if (integrator in ("ss2", "sewi", "sewi_fused", "gautschi")
-            and dtype == jnp.complex64 and reorth):
-        from nlsolvers_tpu.config import pallas_dispatch
-        from nlsolvers_tpu.ops.pallas.lanczos2d import supported_desc
-        probe = (_aniso_desc(global_shape, dx, axis_names, variant,
-                             np.ones(lshape, np.float32), 1.0) if use_c
-                 else getattr(lap, "_pallas_desc", None))
-        use_pl, pl_interp = pallas_dispatch()
-        use_planar = bool(use_pl and supported_desc(probe, lshape, dtype))
-    Rl, nxl = int(np.prod(lshape[:-1])), lshape[-1]
+        return (lambda v: aniso(v, cloc)) if use_c else lap
 
     def mass_of(state):
-        if use_planar:
-            up = state[0] if two_state else state
-            axes = tuple(range(1, len(lshape) + 2))
-            local = jnp.sum(up * up, axis=axes) * dV               # (B,)
-        else:
-            u = state[0] if two_state else state
-            local = jnp.sum(jnp.abs(u) ** 2, axis=spatial_axes) * dV
+        u = state[0] if two_state else state
+        local = jnp.sum(jnp.abs(u) ** 2, axis=spatial_axes) * dV
         return lax.psum(local, axis_names)
-
-    # same fused ghost-copy kernel as make_sharded_nlse_step (bc3d.py)
-    use_bc_kernel = False
-    if use_planar and apply_bc and len(global_shape) == 3:
-        from nlsolvers_tpu.ops.pallas.bc3d import pick_tp_bc
-        use_bc_kernel = (lshape[-1] % 128 == 0 and lshape[1] % 8 == 0
-                         and min(lshape) >= 2
-                         and pick_tp_bc(*lshape, 2) >= 2)
-
-    def single_step_planar(state, i, mloc, cloc):
-        from nlsolvers_tpu.models.nonlinearities import nlse_density_planar
-        desc = (_aniso_desc(global_shape, dx, axis_names, variant, cloc,
-                            1.0) if use_c else lap._pallas_desc)
-        if len(global_shape) == 3:
-            desc = dict(desc, lnz=lshape[0], lny=lshape[1])
-        rho = nlse_density_planar(kind, mloc.reshape(Rl, nxl),
-                                  sigma1=sigma1, sigma2=sigma2, kappa=kappa)
-
-        def fix(upr):
-            if use_bc_kernel:
-                from nlsolvers_tpu.ops.pallas.bc3d import (
-                    neumann_bc_planar_3d)
-                offs = [lax.axis_index(a) * l
-                        for a, l in zip(axis_names, lshape)]
-                return neumann_bc_planar_3d(
-                    upr, lshape, global_shape=global_shape, offsets=offs,
-                    interpret=pl_interp).reshape((2,) + lshape)
-            return neumann(upr.reshape((2,) + lshape))
-
-        if integrator == "ss2":
-            upr = nlse_mod.ss2_step_planar(state.reshape(2, Rl, nxl), desc,
-                                           rho, dt, m=krylov_m,
-                                           interpret=pl_interp,
-                                           axis_names=axis_names)
-            return fix(upr)
-        if integrator == "gautschi":
-            two_step = nlse_mod.gautschi_step_planar
-        else:
-            two_step = partial(nlse_mod.sewi_step_planar,
-                               fuse_exp_sinc=integrator == "sewi_fused")
-        up = state[0].reshape(2, Rl, nxl)
-        up_prev = state[1].reshape(2, Rl, nxl)
-
-        def boot(_):
-            return (nlse_mod.ss2_step_planar(up, desc, rho, dt, m=krylov_m,
-                                             interpret=pl_interp,
-                                             axis_names=axis_names), up)
-
-        def normal(_):
-            return two_step(up, up_prev, desc, rho, dt, m=krylov_m,
-                            interpret=pl_interp, axis_names=axis_names)
-
-        u_new, u_prev_new = lax.cond(i == 1, boot, normal, None)
-        return fix(u_new), u_prev_new.reshape((2,) + lshape)
 
     def single_step(state, i, mloc, cloc):
         op = op_of(cloc)
@@ -779,8 +599,7 @@ def make_sharded_nlse_trajectory_fn(kind, global_shape, Lx, dt, mesh,
         u_new, u_prev_new = lax.cond(i == 1, boot, normal, None)
         return neumann(u_new), u_prev_new
 
-    vstep = jax.vmap(single_step_planar if use_planar else single_step,
-                     in_axes=(0, None, 0, 0))
+    vstep = jax.vmap(single_step, in_axes=(0, None, 0, 0))
     # batch dim is always present (sharded over batch_axis or replicated)
     u_spec = P(batch_axis, None, *axis_names)
     f_spec = P(batch_axis, *axis_names)
@@ -789,21 +608,14 @@ def make_sharded_nlse_trajectory_fn(kind, global_shape, Lx, dt, mesh,
     @partial(jax.jit, static_argnums=(3, 4))
     def traj(u0_packed, m, c, num_snapshots, snapshot_freq):
         def local(u0p, mloc, cloc):
-            if use_planar:
-                up0 = u0p.astype(rdtype)                   # (B, 2, *local)
-                state0 = (up0, up0) if two_state else up0
-                observe = (lambda s: s[0]) if two_state else (lambda s: s)
-            else:
-                u0 = lax.complex(u0p[:, 0].astype(rdtype),
-                                 u0p[:, 1].astype(rdtype))
-                state0 = (u0, u0) if two_state else u0
-                observe = (lambda s: s[0]) if two_state else (lambda s: s)
+            u0 = lax.complex(u0p[:, 0].astype(rdtype),
+                             u0p[:, 1].astype(rdtype))
+            state0 = (u0, u0) if two_state else u0
+            observe = (lambda s: s[0]) if two_state else (lambda s: s)
             step = lambda st, i: vstep(st, i, mloc, cloc)
 
             def pack(snaps):
                 snaps = jnp.moveaxis(snaps, 0, 1)          # (B, S, *local)
-                if use_planar:                             # already planar
-                    return snaps
                 return jnp.stack([jnp.real(snaps), jnp.imag(snaps)],
                                  axis=2)
 
@@ -899,18 +711,10 @@ def make_sharded_realwave_trajectory_fn(kind, global_shape, Lx, dt, mesh,
                else (lambda u: u))
 
     def single_step(state, i, mloc, cloc):
-        if use_c:
-            op = lambda v: aniso(v, cloc)
-            op._pallas_desc = _aniso_desc(global_shape, dx, axis_names,
-                                          variant, cloc, sign=1.0)
-        else:
-            op = lap
+        op = (lambda v: aniso(v, cloc)) if use_c else lap
         u, u_past = state
         if integrator == "gautschi":
             omega2 = lambda w: -op(w)
-            _d = getattr(op, "_pallas_desc", None)
-            if _d is not None:
-                omega2._pallas_desc = dict(_d, sign=-_d["sign"])
             u_new, u_past_new = rw.gautschi_step(
                 u, u_past, omega2, mloc, g, dt, m=krylov_m,
                 filter_func=filter_func, reorth=reorth,

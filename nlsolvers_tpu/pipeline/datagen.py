@@ -1,6 +1,6 @@
 """Datagen launchers: sample -> evolve (batched, on-mesh) -> downsample -> HDF5.
 
-TPU-native replacement for the reference's four launcher scripts
+Replacement for the reference's four launcher scripts
 (finalized_scripts/complex_launcher_{2d,3d}.py, real_launcher_{2d,3d}.py) and
 their surrounding SLURM-array / mpi4py farms: instead of one subprocess + .npy
 round-trip per trajectory, a whole batch of trajectories is one jitted,
@@ -93,7 +93,7 @@ class DatagenConfig:
     shard_grid: tuple = ()           # e.g. (2, 4): shard EACH grid over the
     #                                  mesh's spatial axes (gy, gx) /
     #                                  (gz, gy, gx) — for single trajectories
-    #                                  too large for one chip
+    #                                  too large for one device
     normalize_ic: bool = True        # NLSE only (complex_launcher_2d.py:95)
     boundary: str = "noflux"         # NLSE: "noflux" | "radiating" | "none"
     #                                  (radiating: boundaries.hpp:59-121)
@@ -143,6 +143,8 @@ class DatagenConfig:
         assert self.family in ("nlse", "realwave")
         assert self.dim in (2, 3)
         assert self.archive_format in ("hdf5", "npy")
+        if self.archive_format == "hdf5":
+            io_hdf5.require_h5py()     # fail before any sampling or compute
         if self.shard_grid:
             self.shard_grid = tuple(int(g) for g in self.shard_grid)
             if len(self.shard_grid) != self.dim:
@@ -280,17 +282,17 @@ class Datagen:
     def _build_grid_sharded_traj_fn(self):
         """Spatially sharded engine (parallel/spatial.py): every trajectory's
         GRID is decomposed over the mesh's spatial axes — the path for
-        single runs too large for one chip (1024^2/256^3 configs)."""
+        single runs too large for one device (1024^2/256^3 configs)."""
         cfg = self.cfg
         from nlsolvers_tpu.parallel import spatial
         from nlsolvers_tpu.parallel.mesh import make_mesh
 
         axes = ("gy", "gx") if cfg.dim == 2 else ("gz", "gy", "gx")
         if self.nproc > 1:
-            # multi-host x grid-shard: batch over hosts (DCN), grid over
-            # each host's local devices (ICI). jax.devices() enumerates
-            # host-major, so the leading batch axis maps one row per host
-            # and halo ppermutes never cross DCN.
+            # multi-host x grid-shard: batch over hosts, grid over each
+            # host's local devices. jax.devices() enumerates host-major,
+            # so the leading batch axis maps one row per host and halo
+            # ppermutes never leave a host.
             n = int(np.prod(cfg.shard_grid))
             if n != len(jax.local_devices()):
                 raise ValueError(
@@ -442,8 +444,8 @@ class Datagen:
     # Dispatch and fetch are split so run() can software-pipeline batches:
     # JAX dispatch is asynchronous, so batch k+1's compute is enqueued on
     # the device BEFORE batch k's snapshot stack is pulled back to the host
-    # and archived — D2H (slow on this backend: utils/complexio.py) and
-    # HDF5/downsample host work overlap the next batch's device time.
+    # and archived — D2H and HDF5/downsample host work overlap the next
+    # batch's device time.
     def _place(self, *arrays):
         """Multi-host: assemble this host's blocks into global batch-sharded
         arrays (collective). Single-process: passthrough — the engine itself
@@ -629,7 +631,7 @@ class Datagen:
         cfg = self.cfg
         found = set()
         if cfg.archive_format == "hdf5":
-            import h5py
+            h5py = io_hdf5.require_h5py()
             for p in self.h5_dir.glob(f"run_{self.run_id}_*.h5"):
                 try:
                     idx = int(p.stem.rsplit("_", 1)[1])

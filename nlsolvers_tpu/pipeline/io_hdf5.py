@@ -26,10 +26,21 @@ into the nz/Lz attrs; here c is c and nz is nz.
 
 import datetime
 
-import h5py
 import numpy as np
 
-__all__ = ["save_run", "load_run"]
+__all__ = ["save_run", "load_run", "require_h5py"]
+
+
+def require_h5py():
+    """The h5py module. Only the HDF5 archive format needs h5py, so it is
+    imported here and not when the package loads."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            "the HDF5 archive format (--format hdf5) needs the h5py package, "
+            "which is not installed; install h5py or use --format npy") from e
+    return h5py
 
 
 def _grid_meshes(shape, extents):
@@ -44,11 +55,12 @@ def save_run(path, *, problem_type, run_id, run_index, phenomenon,
              extra_meta=None, scalar_series=None):
     """Write one trajectory archive. `shape`/`extents` are grid (ny, nx[, nz]
     ordering consistent with the arrays); complex trajectories are stored as
-    native complex datasets (host-side numpy, no TPU transfer concerns).
+    native complex datasets.
 
     scalar_series: optional {name: (num_snapshots,) array} recorded during
     generation (e.g. on-device mass/energy, engine.make_*_trajectory_fn with
     record_energy=True) — stored under the `energy/` group."""
+    h5py = require_h5py()
     dim = len(shape)
     is_real = v is not None
     with h5py.File(path, "w") as f:
@@ -110,6 +122,7 @@ def save_run(path, *, problem_type, run_id, run_index, phenomenon,
 
 def load_run(path):
     """Read a run archive back into a plain dict (datasets + attr groups)."""
+    h5py = require_h5py()
     out = {}
     with h5py.File(path, "r") as f:
         for grp in ("metadata", "grid", "time", "focusing"):

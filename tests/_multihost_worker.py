@@ -1,9 +1,9 @@
 """Subprocess worker: one host of a local multi-process CPU cluster.
 
 Launched by tests/test_multihost.py and benchmarks/multihost_scaling.py —
-each process simulates one host of a TPU pod (N virtual CPU devices, gloo
+each process simulates one host of a cluster (N virtual CPU devices, gloo
 collectives over localhost) and runs the SAME multi-host datagen code path
-that a real pod runs (parallel/distributed.py): join the process group,
+that a real cluster runs (parallel/distributed.py): join the process group,
 build the global batch mesh, generate per-host runs, archive per-host HDF5
 shards.
 

@@ -110,6 +110,28 @@ def build_anisotropic_laplacian_noflux_3d(nx, dx, c):
     return L / (dx * dx)
 
 
+def build_conservative_laplacian(shape, dx, c=None):
+    """variant="clean": the exact conservative no-flux operator on a grid of
+    any dimension — neighbours along each axis couple with weight
+    (c_a + c_b)/2 (1 without c), no plane seams, and each diagonal entry is
+    minus the sum of its row's couplings. Returns (N, N), scaled 1/dx^2."""
+    shape = tuple(shape)
+    N = int(np.prod(shape))
+    c = np.ones(N) if c is None else np.asarray(c, float).reshape(N)
+    idx = np.arange(N).reshape(shape)
+    L = np.zeros((N, N))
+    for ax in range(len(shape)):
+        lo = np.take(idx, np.arange(shape[ax] - 1), axis=ax).reshape(-1)
+        hi = np.take(idx, np.arange(1, shape[ax]), axis=ax).reshape(-1)
+        for a, b in zip(lo, hi):
+            w = 0.5 * (c[a] + c[b])
+            L[a, b] += w
+            L[b, a] += w
+            L[a, a] -= w
+            L[b, b] -= w
+    return L / (dx * dx)
+
+
 def build_separated_laplacian_noflux(nx, dx, dy):
     """laplacians.hpp:220-269. Returns (Lx, Ly)."""
     nf = nx + 2

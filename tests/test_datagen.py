@@ -41,7 +41,8 @@ def _gauss_ic(b, complex_=True, seed=1):
     return np.stack(out)
 
 
-@pytest.mark.parametrize("integrator", ["ss2", "sewi"])
+@pytest.mark.parametrize("integrator", ["ss2", "sewi", "sewi_fused",
+                                        "gautschi"])
 def test_engine_nlse_matches_problem(integrator):
     """Batched traced-field engine == per-sample Problem evolution."""
     B = 2
@@ -60,6 +61,35 @@ def test_engine_nlse_matches_problem(integrator):
             integrator=integrator, krylov_m=6, dtype=jnp.complex128)
         ref = np.asarray(problems.run(prob, prob.init(u0[b]), SNAPS, FREQ))
         np.testing.assert_allclose(batched[b], ref, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("integrator", ["ss2", "sewi", "sewi_fused",
+                                        "gautschi"])
+def test_engine_nlse_3d_complex64_matches_problem(integrator):
+    """The production dtype on a 3D grid: the batched engine against each
+    trajectory's Problem path, complex64, to f32 roundoff."""
+    B, n = 2, 12
+    rng = np.random.default_rng(5)
+    m = (1.0 + 0.1 * rng.random((B, n, n, n))).astype(np.float32)
+    c = (1.0 + 0.2 * rng.random((B, n, n, n))).astype(np.float32)
+    x = np.linspace(-LX, LX, n)
+    env = np.exp(-(x[:, None, None] ** 2 + x[None, :, None] ** 2
+                   + x[None, None, :] ** 2) / 4.0)
+    u0 = np.stack([env * np.exp(0.3j * b * x[None, None, :])
+                   for b in range(B)]).astype(np.complex64)
+    traj_fn = make_nlse_trajectory_fn(
+        "cubic", (n,) * 3, LX, DT, integrator=integrator, krylov_m=6,
+        dtype=jnp.complex64, variant="clean")
+    packed = np.stack([u0.real, u0.imag], axis=1)
+    out = np.asarray(traj_fn(packed, m, c, SNAPS, FREQ))
+    batched = out[:, :, 0] + 1j * out[:, :, 1]
+    for b in range(B):
+        prob = problems.nlse_problem(
+            "cubic", (n,) * 3, LX, DT, m_field=m[b], c_field=c[b],
+            integrator=integrator, krylov_m=6, variant="clean",
+            dtype=jnp.complex64)
+        ref = np.asarray(problems.run(prob, prob.init(u0[b]), SNAPS, FREQ))
+        np.testing.assert_allclose(batched[b], ref, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("integrator", ["gautschi", "sv"])

@@ -206,3 +206,31 @@ def test_cluster_resume(tmp_path):
     for f in (tmp_path / "hdf5").glob("run_*.h5"):
         if f.name in mtimes and f.name not in redone:
             assert f.stat().st_mtime_ns == mtimes[f.name], f.name
+
+
+@pytest.mark.parametrize("coord,env_cards,want", [
+    ("localhost:1234", None, [3]),         # one host: process i, card i
+    ("127.0.0.1:1234", None, [3]),
+    ("10.0.0.5:1234", None, None),         # one process per host: all cards
+    ("10.0.0.5:1234", "0,1", [0, 1]),      # the launcher names the cards
+])
+def test_initialize_local_device_ids(monkeypatch, coord, env_cards, want):
+    """The cards a GPU process of a group asks jax.distributed for."""
+    import jax
+
+    from nlsolvers_tpu.parallel import distributed as dist
+
+    seen = {}
+    monkeypatch.setattr(jax.distributed, "initialize",
+                        lambda **kw: seen.update(kw))
+    monkeypatch.setenv(dist.ENV_COORD, coord)
+    monkeypatch.setenv(dist.ENV_NPROCS, "4")
+    monkeypatch.setenv(dist.ENV_PID, "3")
+    monkeypatch.delenv("JAX_PLATFORMS", raising=False)
+    if env_cards is None:
+        monkeypatch.delenv(dist.ENV_LOCAL_DEVICES, raising=False)
+    else:
+        monkeypatch.setenv(dist.ENV_LOCAL_DEVICES, env_cards)
+    assert dist.initialize_from_env()
+    assert seen == dict(coordinator_address=coord, num_processes=4,
+                        process_id=3, local_device_ids=want)

@@ -443,3 +443,118 @@ def test_sharded_realwave_trajectory_matches_engine():
     # velocity tolerance is the u tolerance scaled accordingly
     np.testing.assert_allclose(np.asarray(got_v), np.asarray(ref_v),
                                rtol=2e-3, atol=5e-3)
+
+
+# (mesh shape, variant, anisotropic) per sharded 3D family; the reference
+# variant's y-seam couples planes, so it shards over gx only
+SHARDED_NLSE_CASES = {
+    "2d-aniso-2x4": ((2, 4), "reference", True),
+    "3d-iso-clean-2x2x2": ((2, 2, 2), "clean", False),
+    "3d-iso-clean-1x1x8": ((1, 1, 8), "clean", False),
+    "3d-iso-reference-x-only": ((1, 1, 8), "reference", False),
+    "3d-aniso-clean-2x2x2": ((2, 2, 2), "clean", True),
+    "3d-aniso-clean-1x1x8": ((1, 1, 8), "clean", True),
+    "3d-aniso-reference-x-only": ((1, 1, 8), "reference", True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SHARDED_NLSE_CASES))
+def test_sharded_nlse_step_matches_problem(case):
+    """The sharded SS2 step (halo ppermutes, psum'd Lanczos) against the
+    unsharded problem step at f64, for every sharded operator family."""
+    mesh_shape, variant, aniso = SHARDED_NLSE_CASES[case]
+    need_devices(int(np.prod(mesh_shape)))
+    dim = len(mesh_shape)
+    n = 32 if dim == 2 else 16
+    shape = (n,) * dim
+    axes = ("gy", "gx") if dim == 2 else ("gz", "gy", "gx")
+    mesh = pmesh.make_mesh(axes, shape=mesh_shape,
+                           devices=jax.devices()[: int(np.prod(mesh_shape))])
+    rng = np.random.default_rng(31)
+    m = rng.uniform(0.5, 1.5, shape)
+    c = 1.0 + 0.4 * rng.random(shape) if aniso else None
+    env = _gauss3d(n) if dim == 3 else _gauss3d(n)[n // 2]
+    u0 = env * np.exp(1j * env)
+
+    prob = problems.nlse_problem("cubic", shape, LX, DT, m_field=m,
+                                 c_field=c, krylov_m=6, variant=variant,
+                                 dtype=jnp.complex128)
+    want = prob.step(prob.step(prob.init(u0), 1), 2)
+
+    step = spatial.make_sharded_nlse_step(
+        "cubic", shape, LX, DT, mesh, axis_names=axes, krylov_m=6,
+        dtype=jnp.complex128, variant=variant, use_c=aniso)
+    up = jnp.stack([jnp.asarray(u0.real), jnp.asarray(u0.imag)])
+    fields = (jnp.asarray(m),) + ((jnp.asarray(c),) if aniso else ())
+    for _ in range(2):
+        up = step(up, *fields)
+    got = np.asarray(up[0]) + 1j * np.asarray(up[1])
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("mesh_shape,variant,aniso", [
+    ((2, 2, 2), "clean", False),
+    ((1, 1, 8), "reference", True),
+], ids=["iso-clean-2x2x2", "aniso-reference-x-only"])
+def test_sharded_realwave_gautschi_3d_matches_problem(mesh_shape, variant,
+                                                      aniso):
+    """Sharded real-wave Gautschi (shared-Lanczos cos/filter pair through
+    matfunc_apply_multi) against the unsharded problem step, 3D, f64."""
+    need_devices(int(np.prod(mesh_shape)))
+    n = 16
+    shape = (n,) * 3
+    axes = ("gz", "gy", "gx")
+    mesh = pmesh.make_mesh(axes, shape=mesh_shape,
+                           devices=jax.devices()[: int(np.prod(mesh_shape))])
+    rng = np.random.default_rng(32)
+    m = rng.uniform(0.5, 1.5, shape)
+    c = 1.0 + 0.4 * rng.random(shape) if aniso else None
+    u0, v0 = _gauss3d(n), 0.1 * _gauss3d(n)
+
+    prob = problems.realwave_problem(
+        "sine_gordon", shape, LX, DT, m_field=m, c_field=c,
+        integrator="gautschi", krylov_m=6, dtype=jnp.float64,
+        variant=variant)
+    want = prob.init(u0, v0)
+    for i in range(2):
+        want = prob.step(want, i + 1)
+
+    step = spatial.make_sharded_realwave_step(
+        "sine_gordon", shape, LX, DT, mesh, axis_names=axes,
+        integrator="gautschi", krylov_m=6, dtype=jnp.float64,
+        variant=variant, use_c=aniso)
+    u, up = jnp.asarray(u0), jnp.asarray(u0 - DT * v0)
+    fields = (jnp.asarray(m),) + ((jnp.asarray(c),) if aniso else ())
+    for _ in range(2):
+        u, up = step(u, up, *fields)
+    np.testing.assert_allclose(np.asarray(u), np.asarray(want[0]),
+                               rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(np.asarray(up), np.asarray(want[1]),
+                               rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("integrator", ["sewi", "sewi_fused", "gautschi"])
+def test_sharded_two_step_trajectory_matches_engine(integrator):
+    """Grid-sharded two-step NLSE trajectories (SS2 bootstrap at step 1,
+    then the two-step scheme) against the batch engine, f64."""
+    need_devices(8)
+    from jax.sharding import Mesh
+    from nlsolvers_tpu.pipeline.engine import make_nlse_trajectory_fn
+
+    mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 4), ("gy", "gx"))
+    n, B, S, freq = 32, 2, 3, 2
+    rng = np.random.default_rng(33)
+    u0 = 0.3 * rng.standard_normal((B, 2, n, n))
+    m = 1.0 + 0.1 * rng.random((B, n, n))
+    c = 1.0 + 0.3 * rng.random((B, n, n))
+
+    ref_fn = make_nlse_trajectory_fn("cubic", (n, n), LX, DT,
+                                     integrator=integrator, krylov_m=6,
+                                     dtype=jnp.complex128)
+    want = np.asarray(ref_fn(u0, m, c, S, freq))
+    traj_fn = spatial.make_sharded_nlse_trajectory_fn(
+        "cubic", (n, n), LX, DT, mesh, axis_names=("gy", "gx"),
+        integrator=integrator, krylov_m=6, dtype=jnp.complex128)
+    got = np.asarray(traj_fn(u0, m, c, S, freq))
+    assert got.shape == (B, S, 2, n, n)
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-12)
